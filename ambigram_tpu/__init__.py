@@ -1,6 +1,7 @@
-"""ambigram_tpu — a TPU-native Breakage-Fusion-Bridge (BFB) reconstruction engine.
+"""ambigram_tpu — a JAX Breakage-Fusion-Bridge (BFB) reconstruction engine
+that runs its search on a GPU.
 
-A from-scratch, JAX/XLA/Pallas-first re-design of the capabilities of
+A from-scratch, JAX/XLA re-design of the capabilities of
 deepomicslab/Ambigram (reference surveyed in /root/repo/SURVEY.md):
 
 - LH/JUNCS/PROP ingestion into dense array representations
@@ -8,7 +9,8 @@ deepomicslab/Ambigram (reference surveyed in /root/repo/SURVEY.md):
 - Pattern/loop enumeration and the BFB copy-number fitting program as
   constraint *tensors* rather than a COIN-OR matrix
   (reference: src/LocalGenomicMap.cpp:4397-4752).
-- A JAX-native solver (batched scoring on the MXU + branch and bound)
+- A JAX-native solver (batched matmul scoring on the device + branch
+  and bound)
   replacing the external `cbc` process (reference: localhap.cpp:179-181).
 - Exact host-side path replay (DAG, topological orders, splicing)
   matching the reference's output strings byte for byte

@@ -18,7 +18,7 @@ import sys
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="ambigram_tpu", description="TPU-native local haplotype constructor"
+        prog="ambigram_tpu", description="JAX local haplotype constructor"
     )
     p.add_argument(
         "--op",
@@ -44,8 +44,8 @@ def build_parser() -> argparse.ArgumentParser:
         "Blank lines and # comments are skipped; relative paths resolve "
         "against the manifest's directory. All bulk cases are solved in "
         "ONE device-sharded batch (run_bfb_many) and all sc samples in "
-        "another (run_sc_bfb_many) — the TPU-shaped replacement for "
-        "looping the reference binary per sample (localhap.cpp:111-265). "
+        "another (run_sc_bfb_many) — in place of looping the reference "
+        "binary per sample (localhap.cpp:111-265). "
         "Files named *.manifest are detected automatically.",
     )
     p.add_argument(

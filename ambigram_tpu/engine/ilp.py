@@ -16,7 +16,7 @@ program over x alone:
               0 <= p_t <= 1,  0 <= l_t <= max_cn,  x integer
 
 This module emits those tensors. The residual evaluation is a pair of
-matmuls, which is what the TPU scoring kernel
+matmuls, which is what the device scorer
 (ambigram_tpu/solver/score.py) batches over thousands of candidates.
 
 Variable order matches the reference's `variableIdx`: pattern t

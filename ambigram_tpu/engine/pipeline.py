@@ -115,13 +115,9 @@ def _solve(
     # to a few thousand variables in well under the cost of a single
     # device jit compile, so small and mid-size programs go straight to
     # the exact solver. Above that split the device search owns the
-    # regime. Every number backing this split lives in COMMITTED
-    # artifacts (VERDICT r4: no routing claim without one):
-    # - S=48/V=2352 suite — BENCH_r* "suite_seconds_large_cases" leg /
-    #   docs/bench_snapshot.json (auto matches the exact optimum's eps
-    #   at a fraction of its wall);
-    # - S=64/V=4160 and S=96/V=9312 — docs/bench_big.json
-    #   ("large_s_device_vs_exact": device vs the 60s-budget MILP).
+    # regime. The split was tuned on another accelerator and awaits
+    # re-measurement on the GPU (bench.py's suite and `big` legs time
+    # both sides of it).
     # A feasible device incumbent is accepted as the answer after a
     # short warm-started native-B&B polish — no 60s MILP tail. The MILP
     # only runs at large V when the search produced nothing feasible.
@@ -713,8 +709,8 @@ def run_bfb_many(
     device-sharded pass (cases data-parallel over the mesh), then each
     case's host-side replay completes independently.
 
-    This is the TPU-shaped replacement for the reference's serial
-    per-sample invocation loop: throughput scales with chips, and each
+    This replaces the reference's serial per-sample invocation loop:
+    throughput scales with devices, and each
     host of a multi-host slice runs its `host_shard` of the global case
     list (ambigram_tpu.parallel.distributed).
 
@@ -867,12 +863,10 @@ def solve_programs_batch(
         # flow, round-robin over local devices in pure device mode
         # (async dispatch overlaps the searches).
         #
-        # With a SINGLE case-parallel slot the stacked pass is strictly
-        # worse than per-case searches for every size (measured on 4x
-        # S=32 noisy cases, one v5e chip: stacked 19.5 s, per-case
-        # 9.7 s at equal-or-better epsilon — the stacked greedy step is
-        # weaker than full basin hopping and buys nothing without case
-        # parallelism), so everything goes per-case then.
+        # With a SINGLE case-parallel slot the stacked pass buys nothing:
+        # its greedy step is weaker than full basin hopping, and without
+        # case parallelism it has no throughput to offer in return, so
+        # everything goes per-case then.
         #
         # The stacked pass and the big-case searches run CONCURRENTLY
         # (VERDICT r3 #3): the stacked pass is submitted first so its
@@ -1134,7 +1128,8 @@ def _solve_stacked(items, solver: str, mesh) -> Dict[tuple, object]:
 def _case_store_key(lh_path: str) -> str:
     import hashlib
 
-    digest = hashlib.sha1(open(lh_path, "rb").read()).hexdigest()[:16]
+    with open(lh_path, "rb") as f:
+        digest = hashlib.sha1(f.read()).hexdigest()[:16]
     return "%s-%s" % (os.path.basename(lh_path), digest)
 
 
@@ -1159,7 +1154,8 @@ def _result_to_store(fn: str, res: BfbResult) -> None:
 def _result_from_store(fn: str) -> BfbResult:
     import json
 
-    payload = json.load(open(fn))
+    with open(fn) as f:
+        payload = json.load(f)
     return BfbResult(
         path_strings=payload["path_strings"],
         merged_path_string=payload["merged_path_string"],

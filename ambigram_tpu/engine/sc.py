@@ -242,9 +242,8 @@ def run_sc_bfb_many(
     sample's host-side replay completes independently.
 
     `samples`: [{"lh_paths": "a.lh,b.lh", "edges": "..."}, ...].
-    This is the TPU-shaped replacement for looping the reference's
-    sc_bfb op over samples (localhap.cpp:390-679 is one process per
-    sample); the block programs are the LARGEST programs the engine
+    This replaces looping the reference's sc_bfb op over samples
+    (localhap.cpp:390-679 is one process per sample); the block programs are the LARGEST programs the engine
     builds (variables multiply by K), so batching them across devices
     is where case parallelism pays most.
 

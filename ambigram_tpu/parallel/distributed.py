@@ -1,19 +1,20 @@
 """Multi-host execution.
 
 The reference is a single process (SURVEY.md section 2d); here,
-independent LH cases shard data-parallel across hosts over DCN while
-each host's chips split cases and scoring-matmul row shards over ICI.
+independent LH cases shard data-parallel across hosts over the network
+while each host's devices split cases and scoring-matmul row shards
+over their own interconnect.
 
 Usage on each host of an N-host slice:
 
     from ambigram_tpu.parallel.distributed import initialize, host_shard
     initialize(coordinator="host0:8476", num_processes=N, process_id=k)
     my_cases = host_shard(all_case_paths)      # N-way round robin
-    results = run_bfb_many(my_cases)           # local chips do the rest
+    results = run_bfb_many(my_cases)           # local devices do the rest
 
 jax.distributed wires the cross-host runtime; global-mesh collectives
-(psum over "model", argmin over pools) then ride ICI within a host and
-DCN across hosts automatically under jit.
+(psum over "model", argmin over pools) then ride the device
+interconnect within a host and the network across hosts under jit.
 """
 
 from __future__ import annotations
@@ -34,8 +35,8 @@ def initialize(
     """Initialize jax.distributed (no-op on a single host).
 
     Arguments default to the standard env vars
-    (JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES, JAX_PROCESS_ID) or TPU
-    metadata autodetection."""
+    (JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES, JAX_PROCESS_ID); a GPU
+    cluster has no autodetection, so multi-host runs must set them."""
     coordinator = coordinator or os.environ.get("JAX_COORDINATOR_ADDRESS")
     if num_processes is None:
         env = os.environ.get("JAX_NUM_PROCESSES")

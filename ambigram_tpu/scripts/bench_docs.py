@@ -1,14 +1,13 @@
 """Regenerate the benchmark blocks in README.md / docs/ARCHITECTURE.md
 from a measured bench artifact, so published numbers can never drift
-from measurements (VERDICT r2: three documents told three different
-stories for one benchmark).
+from measurements.
 
 Usage:
-    python bench.py > bench_out.txt 2>&1       # run on the TPU chip
+    python bench.py > bench_out.txt 2>&1       # run on the GPU
     python -m ambigram_tpu.scripts.bench_docs bench_out.txt
 
-or from a driver artifact:
-    python -m ambigram_tpu.scripts.bench_docs BENCH_r03.json
+or from a driver artifact (a JSON object whose "tail" holds the output):
+    python -m ambigram_tpu.scripts.bench_docs artifact.json
 
 The input is scanned for the engine's JSON metric lines (one per
 metric). The blocks between `<!-- BENCH:BEGIN -->` / `<!-- BENCH:END -->`
@@ -33,8 +32,8 @@ END = "<!-- BENCH:END -->"
 
 def extract_metrics(text: str) -> Dict[str, dict]:
     """All engine metric JSON objects found in the text, keyed by their
-    "metric" field. Accepts raw bench output, or a BENCH_r*.json driver
-    artifact (whose "tail" holds the stdout lines)."""
+    "metric" field. Accepts raw bench output, or a driver artifact
+    (whose "tail" holds the stdout lines)."""
     metrics: Dict[str, dict] = {}
     try:
         doc = json.loads(text)
@@ -67,25 +66,35 @@ def _fmt_stage_table(stages: dict) -> str:
     return "\n".join(rows)
 
 
+def device_name(m: Dict[str, dict]) -> str:
+    """The card the artifact was measured on, with its power limit, as
+    the primary line's `device` block names it."""
+    dev = (m.get("bfb_candidates_scored_per_sec_per_chip") or {}).get("device") or {}
+    smi = dev.get("nvidia_smi") or ""
+    if "," in smi:
+        name, limit = smi.split(";")[0].rsplit(",", 1)
+        return "%d x %s, power limit %s" % (dev.get("count", 1), name, limit.strip())
+    return "%s (%s)" % (dev.get("kind", "unknown device"), dev.get("platform", "?"))
+
+
 def render_readme_block(m: Dict[str, dict]) -> str:
     out: List[str] = [BEGIN, ""]
     prim = m.get("bfb_candidates_scored_per_sec_per_chip")
+    where = device_name(m)
     if prim:
         out += [
-            "Measured on one TPU v5e chip (kernel path `%s`):" % prim.get("kernel_path", "?"),
+            "Measured on %s (kernel path `%s`):" % (where, prim.get("kernel_path", "?")),
             "",
             "```json",
             json.dumps(prim, indent=1),
             "```",
             "",
             "Timing is async-dispatch-proof: iterations are chained through a",
-            "data dependence (a fused Pallas kernel on TPU — candidates and the",
-            "int8 row matrix stay in VMEM across all iterations) and the clock",
-            "stops after a host fetch; the reported rate is the best of 3 runs",
-            "of the identical deterministic workload. The `mxu` block is the",
-            "utilization arithmetic: one candidate score is a `[1, vars] x",
-            "[vars, rows]` int8 matmul, so achieved TOPS = candidates/s x",
-            "2 x vars x rows against the v5e's 394.7 int8 TOPS peak.",
+            "data dependence inside one jitted XLA loop and the clock stops",
+            "after a host fetch; the reported rate is the best of 3 runs of the",
+            "identical deterministic workload. The `matmul` block is the",
+            "arithmetic: one candidate score is a `[1, vars] x [vars, rows]`",
+            "matmul, 2 x vars x rows operations.",
             "",
         ]
     suite = m.get("suite_seconds_large_cases")
@@ -98,7 +107,7 @@ def render_readme_block(m: Dict[str, dict]) -> str:
         out += [
             "End-to-end **time-to-solution** on a suite of large noisy cases",
             "(%s — the regime the auto solver routes to the device search)," % suite.get("cases", "?"),
-            "one v5e chip vs the host HiGHS MILP at a 30 s/case budget",
+            "%s vs the host HiGHS MILP at a 30 s/case budget" % where,
             "(one-time bucket compile: %.0f s, excluded from every mode):" % suite.get("device_compile_seconds", 0),
             "",
             "| mode | suite seconds | quality (sum eps) | solved |",
@@ -213,8 +222,9 @@ def render_architecture_block(m: Dict[str, dict]) -> str:
         else:
             auto_note = "auto measured %.0f%% slower than pure device" % diff_pct
         lines += [
-            "Measured on the large-case suite (%s, one v5e chip + one host" % suite.get("cases", "?"),
-            "core): auto %.1f s / device %.1f s / exact (30 s/case HiGHS) %.1f s"
+            "Measured on the large-case suite (%s, %s):"
+            % (suite.get("cases", "?"), device_name(m)),
+            "auto %.1f s / device %.1f s / exact (30 s/case HiGHS) %.1f s"
             % (auto_s, dev_s, ex_s),
             "at total epsilon %s / %s / %s — the device path %s host-exact"
             % (

@@ -207,6 +207,32 @@ def simulate_bfb_case(
     )
 
 
+def random_bfb_program(rng: np.random.Generator, n: int):
+    """A random but structurally consistent fitting program on segments
+    1..n: a CN profile stacked from 2-4 random loops plus 0/1 noise per
+    segment. Small enough for the exact MILP, so device solvers can be
+    checked against it."""
+    from ambigram_tpu.engine.enumerate import enumerate_pairs
+    from ambigram_tpu.engine.ilp import build_bfb_program
+
+    T = n * (n + 1) // 2
+    pairs = enumerate_pairs(1, n)
+    x = np.zeros(2 * T)
+    for _ in range(rng.integers(2, 5)):
+        t = rng.integers(0, T)
+        x[T + t] += rng.integers(1, 3)
+    seg_cn = np.zeros(n)
+    fbi_cn = np.zeros(n)
+    for t in range(T):
+        i, j = pairs[t]
+        if x[T + t] > 0:
+            seg_cn[i - 1 : j] += 2 * x[T + t]
+            fbi_cn[i - 1] += x[T + t]
+            fbi_cn[j - 1] += x[T + t]
+    seg_cn += rng.integers(0, 2, size=n)
+    return build_bfb_program(1, n, seg_cn, fbi_cn, seg_cn.sum(), 1)
+
+
 def case_from_path(
     path: List[Step],
     n_segments: int,

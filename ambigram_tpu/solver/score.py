@@ -9,18 +9,20 @@ Its score is the ILP objective the reference ships to cbc
 Since |r - c| = max(r - c, 0) + max(c - r, 0), a residual row is just a
 hard row with lb = ub = c, so the whole program unifies into one
 matrix H = [A; PENALTY*G] with bounds and score = sum of two hinges —
-a single MXU matmul plus a fused elementwise reduction. That is the
-speed-of-light inner loop the BASELINE metric (candidate structures
-scored/sec/chip) measures.
+a single matmul plus a fused elementwise reduction.
 
-Arrays are padded to lane/sublane multiples so XLA tiles them onto the
-MXU without relayout. All arithmetic is f32: values are small integers
-(|products| << 2^24) so f32 accumulation is exact.
+Arrays are padded to 128-variable / 256-row multiples so programs of
+similar size share one compiled shape. The f32 path is exact: entries
+are small integers (or 1024-scaled ones) and every score is a multiple
+of 0.5, which f32 holds exactly below 2^23 (above that only heavily
+infeasible candidates lie). That needs true f32 products: `row_values`
+pins them, so a GPU cannot round the operands to TF32, whose 10-bit
+mantissa holds integers only up to 2048 while candidate loop counts
+reach the sum of copy numbers.
 """
 
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass
 from typing import Optional
 
@@ -38,6 +40,19 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def row_values(x: jnp.ndarray, H: jnp.ndarray) -> jnp.ndarray:
+    """hx = x @ H.T over the last axis (leading axes batch), in true
+    f32: `Precision.HIGHEST` keeps a GPU from running the product in
+    TF32, which would round candidate entries above 2048 and break the
+    exactness every score comparison relies on."""
+    return jnp.matmul(
+        x,
+        jnp.swapaxes(H, -1, -2),
+        precision=jax.lax.Precision.HIGHEST,
+        preferred_element_type=jnp.float32,
+    )
+
+
 @jax.tree_util.register_pytree_node_class
 @dataclass
 class ScoringTensors:
@@ -50,8 +65,8 @@ class ScoringTensors:
                      hard rows of G prescaled by PENALTY
       lb [Rows], ub [Rows]  row bounds (prescaled for the G rows)
 
-    int8 (MXU fast path, ~1.6x on v5e; used when `int8_ok` and the
-    candidate box fits in int8):
+    int8 (integer-matmul path; used when `int8_ok` and the candidate
+    box fits in int8):
       H8 [Rows, Vp]  the same rows with FBI rows doubled so every entry
                      is a small integer; penalty NOT prescaled
       lb_raw/ub_raw  matching unscaled bounds (FBI rows doubled)
@@ -131,22 +146,19 @@ def scoring_tensors(
     need_f32: bool = True,
 ) -> ScoringTensors:
     """device=False keeps the tensors as host numpy arrays — for callers
-    that restack/pad them (parallel.mesh.stack_cases); pulling device
-    arrays back costs a full round trip per array on relay backends.
+    that restack/pad them (parallel.mesh.stack_cases).
     need_f32=False additionally skips the HOST f32 assembly when the
     int8 representation is exact (stack_cases expands f32 on device, so
     the per-case host f32 build — ~70MB of f64 temporaries per S=48
-    case, measured ~3s/case on a 2-core host — is pure waste there);
-    the returned f32 leaves are 1-row placeholders in that case.
+    case — is pure waste there); the returned f32 leaves are 1-row
+    placeholders in that case.
 
     The int8 representation is assembled first; when it is exact
     (int8_ok — every current builder emits {±1, ±2, 0.5·2} entries) and
     the tensors are going to a device, only the int8 matrix crosses the
     host→device link and the f32 representation is expanded on device
-    (`_expand_f32`): ~5× fewer bytes through the transfer path, and the
-    host never materializes the f64/f32 dense intermediates (measured
-    ~4s/case → ~0.5s/case on the S=48 suite through the relay
-    backend)."""
+    (`_expand_f32`): ~5× fewer bytes to transfer, and the host never
+    materializes the f64/f32 dense intermediates."""
     V = prog.num_vars
     Vp = pad_vars if pad_vars is not None else _round_up(max(V, 128), 128)
     # residual rows: [seg | fbi | coupling] — coupling pairs (the SC
@@ -157,8 +169,7 @@ def scoring_tensors(
     M = prog.G.shape[0]
     rows = R + M
     # bucketing so instances of similar size share one compiled search
-    # program; 256 keeps MXU tiling while wasting at most ~7% of rows
-    # on mid-size programs (512 cost ~12% on the S=32 benchmark shape)
+    # program; 256 wastes at most ~7% of rows on mid-size programs
     Rp = pad_rows if pad_rows is not None else _round_up(max(rows, 256), 256)
     x_ub = np.zeros(Vp, dtype=np.float32)
     x_ub[:V] = prog.x_ub
@@ -285,9 +296,10 @@ def score_batch(st: ScoringTensors, x: jnp.ndarray) -> jnp.ndarray:
     """Score candidates. x: [..., Vp] float32 (integer-valued, within
     [0, x_ub]). Returns residual + PENALTY * violation, shape [...].
 
-    Dispatches to the int8 MXU path (exact integer matmul, ~1.6x on
-    v5e) when the program and candidate box permit; otherwise the f32
-    path. `use_int8` is static, so each program compiles one variant."""
+    Dispatches to the int8 path (exact integer matmul with int32
+    accumulation) when the program and candidate box permit; otherwise
+    the pinned-f32 path. `use_int8` is static, so each program compiles
+    one variant."""
     if st.use_int8:
         hx = jax.lax.dot_general(
             x.astype(jnp.int8),
@@ -298,192 +310,10 @@ def score_batch(st: ScoringTensors, x: jnp.ndarray) -> jnp.ndarray:
         over = jnp.maximum(hx - st.ub_raw, 0.0)
         under = jnp.maximum(st.lb_raw - hx, 0.0)
         return jnp.sum(st.w * (over + under), axis=-1)
-    hx = jnp.matmul(x, st.H.T, preferred_element_type=jnp.float32)
+    hx = row_values(x, st.H)
     over = jnp.maximum(hx - st.ub, 0.0)
     under = jnp.maximum(st.lb - hx, 0.0)
     return jnp.sum(over, axis=-1) + jnp.sum(under, axis=-1)
 
 
 score_batch_jit = jax.jit(score_batch)
-
-
-def residual_only(st: ScoringTensors, x: jnp.ndarray) -> jnp.ndarray:
-    """Epsilon sum alone (no violation penalty)."""
-    R = st.num_residual_rows
-    hx = jnp.matmul(x, st.H[:R].T, preferred_element_type=jnp.float32)
-    return jnp.sum(jnp.abs(hx - st.ub[:R]), axis=-1)
-
-
-# ----------------------------------------------------------------- pallas
-
-def chained_mutate(X, s, i, x_ub):
-    """The benchmark chain's candidate mutation: a data-dependent bump
-    on the first 128 variable lanes (enough to defeat loop hoisting —
-    every iteration scores a batch derived from the previous scores —
-    while keeping the non-scoring VPU work small). Shared by the XLA
-    loop in bench.py and the Pallas kernel so both chains are
-    identical."""
-    col = jax.lax.broadcasted_iota(jnp.int32, (1, 128), 1).astype(jnp.float32)
-    s2 = s if s.ndim == 2 else s[:, None]
-    xu = x_ub if x_ub.ndim == 2 else x_ub[None, :]
-    bump = jnp.where((s2 + col + jnp.float32(i)) % 7.0 < 1.0, 1.0, 0.0)
-    head = jnp.minimum(
-        X[:, :128] + bump, jnp.broadcast_to(xu[:, :128], (X.shape[0], 128))
-    )
-    return jnp.concatenate([head, X[:, 128:]], axis=1)
-
-
-def _chained_kernel(
-    h8_ref, lb_ref, ub_ref, w_ref, xub_ref, x_ref, acc_ref, *, iters, n_row_tiles
-):
-    """One candidate block's full scoring chain, VMEM-resident: the
-    [block_b, Vp] candidates and the [Rows, Vp] int8 row matrix stay on
-    chip for all `iters` iterations (matmul -> weighted hinges ->
-    data-dependent bump), so HBM sees each candidate exactly once.
-    Semantics identical to bench.py's XLA `chained` loop on the int8
-    scoring path.
-
-    `n_row_tiles` splits the row dimension into independent
-    (dot, hinge) tile pairs inside the loop body: tile j's VPU hinge
-    has no dependence on tile j+1's MXU matmul, so Mosaic can overlap
-    them — the serialized form (n_row_tiles=1) bounds utilization at
-    ~73% on the benchmark shape because the ~4.3 us of hinge VPU work
-    per iteration waits for the full 11.5 us matmul (roofline in
-    docs/ARCHITECTURE.md)."""
-    xub = xub_ref[...]  # [1, Vp]
-    Rows = h8_ref.shape[0]
-    tile = Rows // n_row_tiles
-
-    def body(i, carry):
-        X, acc = carry
-        x8 = X.astype(jnp.int8)
-        s = jnp.zeros((X.shape[0], 1), jnp.float32)
-        for j in range(n_row_tiles):  # static unroll: tiles are independent
-            sl = slice(j * tile, (j + 1) * tile)
-            hx = jax.lax.dot_general(
-                x8,
-                h8_ref[sl, :],
-                dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.int32,
-            ).astype(jnp.float32)
-            over = jnp.maximum(hx - jnp.broadcast_to(ub_ref[:, sl], hx.shape), 0.0)
-            under = jnp.maximum(jnp.broadcast_to(lb_ref[:, sl], hx.shape) - hx, 0.0)
-            w = jnp.broadcast_to(w_ref[:, sl], hx.shape)
-            s = s + jnp.sum(w * (over + under), axis=-1, keepdims=True)
-        X = chained_mutate(X, s, i, xub)
-        return X, acc + jnp.sum(s)
-
-    _, acc = jax.lax.fori_loop(
-        0, iters, body, (x_ref[...], jnp.float32(0.0))
-    )
-    acc_ref[...] = jnp.full(acc_ref.shape, acc, dtype=jnp.float32)
-
-
-@functools.partial(jax.jit, static_argnames=("iters", "block_b", "n_row_tiles"))
-def chained_score_pallas(
-    st: ScoringTensors,
-    x: jnp.ndarray,
-    iters: int,
-    block_b: int = 512,
-    n_row_tiles: int = 1,
-) -> jnp.ndarray:
-    """Chained scoring of x [B, Vp] for `iters` data-dependent
-    iterations (the benchmark workload), fused into one Pallas kernel.
-    Requires the int8-exact program representation (st.use_int8) and
-    B divisible by block_b. Returns the scalar checksum (sum of all
-    scores across iterations). `n_row_tiles` must divide the padded row
-    count into lane-aligned tiles (Rows multiple of 128*n_row_tiles);
-    see `_chained_kernel` for what it buys."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    assert st.use_int8, "chained kernel runs on the int8 representation"
-    B, Vp = x.shape
-    Rows = st.H8.shape[0]
-    block_b = min(block_b, B)
-    assert B % block_b == 0, (
-        "batch %d must be divisible by block_b %d (the grid would "
-        "silently drop the remainder candidates)" % (B, block_b)
-    )
-    assert Rows % (128 * n_row_tiles) == 0, (
-        "rows %d must split into %d lane-aligned tiles" % (Rows, n_row_tiles)
-    )
-    grid = (B // block_b,)
-    lb2 = st.lb_raw.reshape(1, Rows)
-    ub2 = st.ub_raw.reshape(1, Rows)
-    w2 = st.w.reshape(1, Rows)
-    xub2 = st.x_ub.reshape(1, Vp)
-    interpret = jax.default_backend() != "tpu"
-    acc = pl.pallas_call(
-        functools.partial(_chained_kernel, iters=iters, n_row_tiles=n_row_tiles),
-        out_shape=jax.ShapeDtypeStruct((grid[0] * 8, 128), jnp.float32),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((Rows, Vp), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, Rows), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, Rows), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, Rows), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, Vp), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((block_b, Vp), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((8, 128), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        interpret=interpret,
-    )(st.H8, lb2, ub2, w2, xub2, x)
-    return jnp.sum(acc[::8, 0])
-
-
-def _score_kernel(h_ref, lb_ref, ub_ref, x_ref, out_ref):
-    """Grid (i, j): candidate tile i vs row tile j. The [block_b,
-    block_r] product stays in VMEM; out accumulates over j."""
-    from jax.experimental import pallas as pl
-
-    jj = pl.program_id(1)
-
-    @pl.when(jj == 0)
-    def _():
-        out_ref[...] = jnp.zeros_like(out_ref)
-
-    hx = jax.lax.dot_general(
-        x_ref[...],
-        h_ref[...],
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-    over = jnp.maximum(hx - ub_ref[...], 0.0)
-    under = jnp.maximum(lb_ref[...] - hx, 0.0)
-    out_ref[...] += jnp.sum(over, axis=-1, keepdims=True) + jnp.sum(
-        under, axis=-1, keepdims=True
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("block_b", "block_r"))
-def score_batch_pallas(
-    st: ScoringTensors, x: jnp.ndarray, block_b: int = 512, block_r: int = 512
-) -> jnp.ndarray:
-    """Pallas-fused scorer. x: [B, Vp], B divisible by block_b, rows
-    divisible by block_r. Returns [B] scores."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    B, Vp = x.shape
-    Rows = st.H.shape[0]
-    block_b = min(block_b, B)
-    block_r = min(block_r, Rows)
-    grid = (B // block_b, Rows // block_r)
-    lb2 = st.lb.reshape(1, Rows)
-    ub2 = st.ub.reshape(1, Rows)
-    interpret = jax.default_backend() != "tpu"
-    out = pl.pallas_call(
-        _score_kernel,
-        out_shape=jax.ShapeDtypeStruct((B, 1), jnp.float32),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((block_r, Vp), lambda i, j: (j, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, block_r), lambda i, j: (0, j), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, block_r), lambda i, j: (0, j), memory_space=pltpu.VMEM),
-            pl.BlockSpec((block_b, Vp), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((block_b, 1), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-        interpret=interpret,
-    )(st.H, lb2, ub2, x)
-    return out[:, 0]

@@ -3,7 +3,7 @@
 The reference's only instrumentation is a wall-clock line in time.csv
 (localhap.cpp:383-388). Here: named phase timers with a
 candidates-scored counter (the BASELINE metric), plus an optional
-jax.profiler trace context for TPU timeline capture.
+jax.profiler trace context for device timeline capture.
 """
 
 from __future__ import annotations

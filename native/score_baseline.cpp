@@ -5,8 +5,8 @@
 // candidate x, one dense pass over the *unpadded* unified row matrix
 // H accumulating hinge(Hx - ub) + hinge(lb - Hx)  (residual rows have
 // lb == ub, hard rows are prescaled). -O2 -march=native
-// auto-vectorized. The TPU engine's candidates-scored/s is measured
-// against this (BASELINE.md: >=10x target).
+// auto-vectorized. bench.py's device candidates-scored/s is measured
+// against this.
 //
 // Protocol: raw little-endian file
 //   int32 Rows, V, B, iters

@@ -233,8 +233,8 @@ def test_barcode_snap_matches_reference_semantics(tmp_path):
 
 def test_bench_docs_extract_and_render():
     """bench_docs parses metric lines from raw bench output and from a
-    BENCH_r*.json driver artifact, and renders doc blocks containing
-    exactly the measured numbers."""
+    driver artifact, and renders doc blocks containing exactly the
+    measured numbers, on the card the primary line names."""
     import json
 
     from ambigram_tpu.scripts.bench_docs import (
@@ -248,7 +248,13 @@ def test_bench_docs_extract_and_render():
         "value": 123.0,
         "unit": "candidates/s",
         "vs_baseline": 2.0,
-        "kernel_path": "pallas-fused-int8",
+        "kernel_path": "xla-loop-int8",
+        "device": {
+            "platform": "gpu",
+            "kind": "NVIDIA H100 80GB HBM3",
+            "count": 1,
+            "nvidia_smi": "NVIDIA H100 80GB HBM3, 700.00 W",
+        },
     }
     suite = {
         "metric": "suite_seconds_large_cases",
@@ -268,9 +274,11 @@ def test_bench_docs_extract_and_render():
     assert prim["metric"] in m2 and suite["metric"] in m2
 
     readme = render_readme_block(m)
-    assert "pallas-fused-int8" in readme and "| auto | 9.0 | 5.00 | 4/4 |" in readme
+    assert "xla-loop-int8" in readme and "| auto | 9.0 | 5.00 | 4/4 |" in readme
+    assert "1 x NVIDIA H100 80GB HBM3, power limit 700.00 W" in readme
     arch = render_architecture_block(m)
     assert "auto 9.0 s / device 10.0 s" in arch
+    assert "1 x NVIDIA H100 80GB HBM3, power limit 700.00 W" in arch
 
 
 def test_bench_docs_degenerate_artifacts():
